@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (written for an NVIDIA H100, sm_90a) and a checkout
+of the repository: it puts ``<its dir>/src`` on ``sys.path`` itself and
+imports nothing of JAX or of the JAX package.  Phases, in order; any
+failure raises and the script exits non-zero:
+
+1. build   — compile the flash-attention kernel from ``csrc/`` with nvcc.
+2. kernel  — the kernel against its plain PyTorch version on the card, on
+             the reference's test cases, the serving shape and head dims 8
+             and 16; times of kernel, plain version and
+             ``scaled_dot_product_attention`` (a yardstick only) at the
+             serving shape, beside the kernel's bound.
+3. reduced — reduced qwen2-7b and qwen1.5-4b in f32, card against CPU.
+4. main    — full-width qwen2-7b from ``init_params(seed)``: prefill 4x1024,
+             16 decode steps at B=4, and ``ServeEngine`` serving 8 requests.
+             Launch counts are read from this run only.
+5. checks  — full-width qwen2-7b: kernel path against plain path, and
+             prefill + decode against forward, in f32 and bf16.
+6. profile — device busy share and top kernels of one prefill and one
+             decode step (``torch.profiler``).
+
+The line before last is the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+# H100 SXM published dense peaks
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# tests/test_kernels_pallas.py FLASH_CASES, then the serving shape and the
+# reduced configs' head dims:
+# B, Sq, Sk, H, KVH, D, causal, window, softcap, dtype
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0, "float32"),
+    (1, 64, 64, 4, 4, 32, True, 0, 0.0, "float32"),
+    (1, 100, 144, 4, 4, 64, True, 32, 0.0, "bfloat16"),
+    (2, 64, 256, 8, 2, 128, False, 0, 0.0, "float32"),
+    (1, 128, 128, 2, 1, 64, True, 0, 30.0, "float32"),
+    (1, 32, 32, 4, 2, 64, True, 8, 0.0, "bfloat16"),
+    (4, 1024, 1024, 28, 4, 128, True, 0, 0.0, "bfloat16"),   # serving shape
+    (2, 48, 48, 8, 2, 8, True, 0, 0.0, "float32"),           # qwen2-7b reduced
+    (2, 48, 48, 4, 4, 16, True, 0, 0.0, "float32"),          # qwen1.5-4b reduced
+]
+MAIN_CASE = FLASH_CASES[6]
+BARS = {"float32": 2e-5, "bfloat16": 2e-2}    # the JAX kernel tests' bars
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def attention_work(B, Sq, Sk, H, KVH, D, causal, window, dtype_bytes):
+    """(operations, bytes) the function needs on these inputs: 4·D per
+    valid (query, key) pair; q, k, v read once and o written once."""
+    pairs = 0
+    for qp in range(Sq):
+        hi = min(Sk - 1, qp) if causal else Sk - 1
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo + 1)
+    flops = 4 * D * pairs * B * H
+    nbytes = dtype_bytes * D * (2 * B * H * Sq + 2 * B * KVH * Sk)
+    return flops, nbytes
+
+
+# --------------------------------------------------------------------- phases
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    path, seconds = _build.build("flash_attention")
+    log("1 build", f"flash_attention built in {seconds:.2f} s -> "
+        f"{os.path.relpath(path, HERE)}")
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log("1 build", "ptxas: " + line.strip())
+    return seconds
+
+
+def phase_kernel(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for case in FLASH_CASES:
+        B, Sq, Sk, H, KVH, D, causal, window, softcap, dname = case
+        dt = getattr(torch, dname)
+        q = torch.randn(B, H, Sq, D, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, KVH, Sk, D, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, KVH, Sk, D, device="cuda", generator=gen).to(dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out = flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, **kw)
+        err = float((out.float() - want.float()).abs().max())
+        log("2 kernel", f"{case}: max abs err {err:.3e} (bar {BARS[dname]})")
+        if not err < BARS[dname]:
+            raise AssertionError(f"flash kernel disagrees on {case}: {err}")
+        if case != MAIN_CASE:
+            continue
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), 20)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), 5)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 20)
+        flops, nbytes = attention_work(B, Sq, Sk, H, KVH, D, causal, window,
+                                       q.element_size())
+        peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_F32_FLOPS
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        log("2 kernel", f"serving shape {case[:6]} {dname}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), kernel at {flops / ms / 1e9:.2f} TFLOP/s")
+        result = {"max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
+def phase_reduced(torch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import decode_step, init_params, prefill
+
+    rng = np.random.default_rng(0)
+    for arch in ("qwen2-7b", "qwen1.5-4b"):
+        cfg = get_config(arch, reduced=True).replace(
+            compute_dtype="float32", param_dtype="float32")
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_gpu = tree_to(p_cpu, "cuda")
+        toks = rng.integers(0, cfg.vocab_size, (2, 48)).astype("int64")
+        batch = {"tokens": torch.as_tensor(toks)}
+        outs = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            before = flash_attention_fwd.launches
+            with torch.inference_mode():
+                cache, logits, pos = prefill(p, cfg, batch, pad_to=56,
+                                             device=dev)
+                launched = flash_attention_fwd.launches - before
+                nxt = torch.argmax(logits, -1)[:, None]
+                dlogits, _ = decode_step(p, cfg, cache, nxt, pos, device=dev)
+            want = cfg.n_layers if dev == "cuda" else 0
+            if launched != want:
+                raise AssertionError(f"{arch} on {dev}: {launched} kernel "
+                                     f"launches in prefill, want {want}")
+            outs[dev] = (logits.cpu(), dlogits.cpu())
+        rp = rel_err(outs["cuda"][0], outs["cpu"][0])
+        rd = rel_err(outs["cuda"][1], outs["cpu"][1])
+        log("3 reduced", f"{arch} f32, card vs CPU: prefill rel {rp:.3e}, "
+            f"decode rel {rd:.3e} (bar 1e-4), {cfg.n_layers} kernel "
+            "launches per prefill")
+        if not (rp < 1e-4 and rd < 1e-4):
+            raise AssertionError(f"{arch}: card and CPU disagree")
+
+
+def phase_main(torch, cfg, params):
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    B, S, steps = 4, 1024, 16
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    with torch.inference_mode():      # warm cuBLAS and the allocator
+        prefill(params, cfg, {"tokens": tokens[:1, :64]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention_fwd.launches = 0          # the main path starts here
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cache, logits, pos = prefill(params, cfg, {"tokens": tokens},
+                                     pad_to=S + steps)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        prefill_launches = flash_attention_fwd.launches
+        nxt = torch.argmax(logits, -1)[:, None]
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dlogits, cache = decode_step(params, cfg, cache, nxt, pos)
+            nxt = torch.argmax(dlogits, -1)[:, None]
+            pos = pos + 1
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    del cache
+    reqs = [Request(rng.integers(0, cfg.vocab_size,
+                                 int(rng.integers(2, 13))).astype(np.int32),
+                    max_new_tokens=16) for _ in range(8)]
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=128)
+    t0 = time.perf_counter()
+    done = engine.serve(reqs)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = flash_attention_fwd.launches   # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+
+    if prefill_launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched the kernel "
+                             f"{prefill_launches} times, want {cfg.n_layers}")
+    for name, x in (("prefill", logits), ("decode", dlogits)):
+        if x.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name} logits: shape {tuple(x.shape)} "
+                                 "or non-finite values")
+    served = sum(len(r.out) for r in done)
+    if not all(len(r.out) == 16 and r.done
+               and all(0 <= t < cfg.vocab_size for t in r.out) for r in done):
+        raise AssertionError("ServeEngine left a request short or out of vocab")
+    log("4 main", f"prefill {B}x{S}: {t_prefill:.4f} s "
+        f"({B * S / t_prefill:.1f} tok/s), {prefill_launches} kernel launches")
+    log("4 main", f"decode {steps} steps x {B}: {t_decode:.4f} s "
+        f"({steps * B / t_decode:.2f} tok/s, "
+        f"{t_decode / steps * 1e3:.2f} ms/step)")
+    log("4 main", f"ServeEngine 4 slots, max_len 128: {len(done)} requests, "
+        f"{served} tokens in {t_serve:.3f} s ({served / t_serve:.2f} tok/s)")
+    log("4 main", f"peak memory {peak_gb:.2f} GB; launches on the main path "
+        f"{launches}")
+    return launches
+
+
+def phase_checks(torch, cfg, params):
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.layers import unembed_matrix
+
+    S = 512
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
+                         generator=gen)
+    bars = {"float32": (1e-4, 2e-3), "bfloat16": (5e-2, 5e-2)}
+    for cdt, (bar_plain, bar_decode) in bars.items():
+        c = cfg.replace(compute_dtype=cdt)
+        with torch.inference_mode():
+            cache, logits, pos = prefill(params, c, {"tokens": toks[:, :S]},
+                                         pad_to=S + 8)
+            _, plain, _ = prefill(params, c.replace(attention_impl="naive"),
+                                  {"tokens": toks[:, :S]})
+            dlogits, _ = decode_step(params, c, cache, toks[:, S:], pos)
+            h, _, _ = forward(params, c, {"tokens": toks})
+            ref = h[:, -1, :].float() @ unembed_matrix(
+                params["embedding"], c).float()
+        r_plain, r_dec = rel_err(logits, plain), rel_err(dlogits, ref)
+        agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+        log("5 checks", f"{cdt}: prefill kernel path vs plain path: rel "
+            f"{r_plain:.3e} (bar {bar_plain}, argmax agree {agree:.2f}); "
+            f"prefill+decode vs forward(S+1): rel {r_dec:.3e} "
+            f"(bar {bar_decode})")
+        if not (r_plain < bar_plain and r_dec < bar_decode):
+            raise AssertionError(f"full-width {cdt} check over its bar")
+
+
+def phase_profile(torch, cfg, params):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+
+    B, S = 4, 1024
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                         generator=gen)
+    with torch.inference_mode():
+        cache, logits, pos = prefill(params, cfg, {"tokens": toks},
+                                     pad_to=S + 4)
+        nxt = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        work = {
+            "prefill_4x1024": lambda: prefill(params, cfg, {"tokens": toks}),
+            "decode_step_4": lambda: decode_step(params, cfg, cache, nxt,
+                                                 pos),
+        }
+        for name, fn in work.items():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if getattr(e, "device_type", None) is not None
+                       and str(e.device_type).endswith("CUDA")
+                       and e.self_device_time_total > 0]
+            dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            log("6 profile", f"{name}: wall {wall_ms:.2f} ms, device busy "
+                f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%), "
+                f"{sum(e.count for e in kernels)} kernel launches")
+            kernels.sort(key=lambda e: -e.self_device_time_total)
+            for e in kernels[:6]:
+                ms = e.self_device_time_total / 1e3
+                log("6 profile", f"  {ms:9.3f} ms x{e.count:<5d} "
+                    f"{100 * ms / max(dev_ms, 1e-9):5.1f}%  {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: repro_torch not found next to this script: run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    t_start = time.perf_counter()
+
+    phase_build()
+    kernel = phase_kernel(torch)
+    phase_reduced(torch)
+
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0)
+    torch.cuda.synchronize()
+    log("4 main", f"qwen2-7b: {param_count(params)} params "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB, "
+        f"{cfg.param_dtype}) initialised on {torch.cuda.get_device_name(0)} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    launches = phase_main(torch, cfg, params)
+    phase_checks(torch, cfg, params)
+    phase_profile(torch, cfg, params)
+    if launches < 1:
+        raise AssertionError("the main path never launched the flash kernel")
+
+    record = {"kernels": [{
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": launches, **kernel}]}
+    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(record))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

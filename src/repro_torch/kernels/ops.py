@@ -1,0 +1,20 @@
+"""Model-layout wrappers around the port's kernels.
+
+The model keeps attention tensors as (B, S, H, D); the kernel takes
+(B, H, S, D).  The kernel reads strided views, so the transposes here
+copy nothing.  Launches are counted on the wrapper that launches the
+kernel, ``repro_torch.kernels.flash_attention.flash_attention_fwd``.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    softcap: float = 0.0):
+    """Model-layout wrapper: q (B, Sq, H, D); k/v (B, Sk, KVH, D)."""
+    win = int(window) if window else 0
+    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, window=win,
+                              softcap=softcap)
+    return out.transpose(1, 2)
