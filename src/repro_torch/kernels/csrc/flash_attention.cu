@@ -31,6 +31,8 @@
 // shared-memory load per FMA; wgmma on bf16 tiles fed by TMA, and
 // pipelined loads, are the later work that closes the gap.
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -184,16 +186,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int G, int Sq, int Sk, Strides qs,
+cudaError_t launch(int device, const void* q, const void* k, const void* v,
+                   void* o, int B, int H, int G, int Sq, int Sk, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
                    int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  // The shared-memory limit is a per-device attribute of each instance:
+  // set it on the first launch on a device, not on every launch.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << device;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -203,27 +212,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int G, int Sq, int Sk,
-                       Strides qs, Strides ks, Strides vs, Strides os,
+cudaError_t dispatch_d(int device, int D, const void* q, const void* k,
+                       const void* v, void* o, int B, int H, int G, int Sq,
+                       int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                        int causal, int window, float softcap, float scale,
                        cudaStream_t st) {
   switch (D) {
     case 8:
-      return launch<T, 8>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                          causal, window, softcap, scale, st);
+      return launch<T, 8>(device, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
+                          vs, os, causal, window, softcap, scale, st);
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                           causal, window, softcap, scale, st);
+      return launch<T, 16>(device, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
+                           vs, os, causal, window, softcap, scale, st);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                           causal, window, softcap, scale, st);
+      return launch<T, 32>(device, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
+                           vs, os, causal, window, softcap, scale, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                           causal, window, softcap, scale, st);
+      return launch<T, 64>(device, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
+                           vs, os, causal, window, softcap, scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                            causal, window, softcap, scale, st);
+      return launch<T, 128>(device, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
+                            vs, os, causal, window, softcap, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -233,8 +242,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // Plain C entry point, bound with ctypes by repro_torch/kernels/_build.py.
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements, (batch, head,
-// sequence) for each tensor; the head dim must be dense.  Returns the
-// cudaError_t of the launch (0 on success).
+// sequence) for each tensor; the head dim must be dense.  ``device`` must
+// be the caller's current device, which the Python wrapper makes it.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KVH, int Sq, int Sk, int D, long long qsb,
@@ -242,20 +252,20 @@ extern "C" int repro_flash_attention_fwd(
     long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, int causal, int window,
     float softcap, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
+  if (device < 0 || device >= 64 || KVH <= 0 || H % KVH != 0)
+    return cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KVH;
+  cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                            causal, window, softcap, scale, st);
+    err = dispatch_d<float>(device, D, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
+                            vs, os, causal, window, softcap, scale, st);
   else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
-                                    vs, os, causal, window, softcap, scale,
-                                    st);
+    err = dispatch_d<__nv_bfloat16>(device, D, q, k, v, o, B, H, G, Sq, Sk,
+                                    qs, ks, vs, os, causal, window, softcap,
+                                    scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

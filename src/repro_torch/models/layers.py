@@ -167,52 +167,6 @@ def _chunk_bias(q_pos, k_pos, causal: bool, window) -> torch.Tensor:
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
-def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, causal: bool, window=None, block_k: int = 512,
-                      softcap: float = 0.0,
-                      q_offset: int = 0) -> torch.Tensor:
-    """GQA attention over KV chunks with an online softmax: the plain
-    PyTorch form of the reference's XLA-lowered flash attention.
-
-    q: (B, Sq, H, D); k, v: (B, Sk, KVH, D); returns (B, Sq, H, D).
-    ``q_offset`` shifts query positions."""
-    B, Sq, H, D = q.shape
-    _, Sk, KVH, _ = k.shape
-    G = H // KVH
-    block_k = min(block_k, Sk)
-    if Sk % block_k:
-        # pad the KV sequence up to a chunk multiple; padded keys are
-        # masked out below via the k_pos < Sk check
-        pad = block_k - Sk % block_k
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    n_chunks = k.shape[1] // block_k
-    qg = (q.reshape(B, Sq, KVH, G, D) * (D ** -0.5)).float()
-    m = torch.full((B, Sq, KVH, G), NEG_INF, device=q.device)
-    l = torch.zeros((B, Sq, KVH, G), device=q.device)
-    acc = torch.zeros((B, Sq, KVH, G, D), device=q.device)
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
-    for idx in range(n_chunks):
-        kb = k[:, idx * block_k:(idx + 1) * block_k]
-        vb = v[:, idx * block_k:(idx + 1) * block_k]
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb.float())
-        if softcap > 0.0:
-            s = torch.tanh(s / softcap) * softcap
-        k_pos = idx * block_k + torch.arange(block_k, device=q.device)
-        bias = _chunk_bias(q_pos, k_pos, causal, window)     # (Sq, block_k)
-        bias = bias + torch.where(k_pos < Sk, 0.0, NEG_INF)[None, :]
-        s = s + bias[None, :, None, None, :]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bqhgk,bkhd->bqhgd", p.to(vb.dtype).float(), vb.float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, Sq, H, D).to(q.dtype)
-
-
 def naive_attention(q, k, v, *, causal: bool, window=None,
                     softcap: float = 0.0, q_offset=0,
                     k_valid=None) -> torch.Tensor:

@@ -113,14 +113,13 @@ def self_layer_train(p, cfg: ModelConfig, x, rope_lg, is_global: bool,
 
 
 def self_layer_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
-                      rope_lg, is_global: bool, layer=None):
+                      rope_lg, is_global: bool, layer: int):
     """x: (B,1,d); pos: (B,) write positions.
 
-    cache_k/v are either per-layer (B, S, KVH, hd) tensors (layer=None)
-    or the FULL stacked (L, B, S, KVH, hd) caches, written at ``layer``.
-    Where JAX donates the cache and lets XLA alias the update, the port
-    writes the new keys and values into the caches in place: the caller's
-    tensors are updated and returned."""
+    cache_k/v are the FULL stacked (L, B, S, KVH, hd) caches, written at
+    ``layer``.  Where JAX donates the cache and lets XLA alias the update,
+    the port writes the new keys and values into the caches in place: the
+    caller's tensors are updated and returned."""
     B = x.shape[0]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = project_qkv(p["attn"], cfg, h)
@@ -128,10 +127,7 @@ def self_layer_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
     if cfg.rope_theta:
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     bidx = torch.arange(B, device=x.device)
-    if layer is None:
-        ck, cv = cache_k, cache_v
-    else:
-        ck, cv = cache_k[layer], cache_v[layer]
+    ck, cv = cache_k[layer], cache_v[layer]
     ck[bidx, pos] = k[:, 0].to(ck.dtype)
     cv[bidx, pos] = v[:, 0].to(cv.dtype)
     win = _window_for(cfg, is_global, ck.shape[1])

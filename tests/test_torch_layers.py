@@ -128,21 +128,6 @@ def test_naive_attention_full_sequence_with_offset():
     _close(j, t)
 
 
-@pytest.mark.parametrize("causal,window,block_k", [(True, None, 8),
-                                                   (True, 7, 6),
-                                                   (False, None, 32)])
-def test_blocked_attention(causal, window, block_k):
-    rng = np.random.default_rng(5)
-    q, k, v = _rand(rng, 2, 20, 4, 16), _rand(rng, 2, 20, 2, 16), \
-        _rand(rng, 2, 20, 2, 16)
-    j = J.blocked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                            causal=causal, window=window, block_k=block_k)
-    t = T.blocked_attention(torch.from_numpy(q), torch.from_numpy(k),
-                            torch.from_numpy(v), causal=causal,
-                            window=window, block_k=block_k)
-    _close(j, t)
-
-
 @pytest.mark.parametrize("impl", ["blocked", "pallas", "naive"])
 def test_attention_dispatcher(impl):
     """Prefill shapes go to the flash wrapper ("blocked", "pallas") or the
@@ -155,6 +140,24 @@ def test_attention_dispatcher(impl):
                     causal=True)
     t = T.attention(tcfg, torch.from_numpy(q), torch.from_numpy(k),
                     torch.from_numpy(v), causal=True)
+    _close(j, t)
+
+
+@pytest.mark.parametrize("impl,window,softcap", [("blocked", 7, 0.0),
+                                                 ("blocked", None, 20.0),
+                                                 ("pallas", 5, 30.0)])
+def test_attention_dispatcher_window_softcap(impl, window, softcap):
+    """Sliding-window and softcapped prefill through the flash wrapper's
+    plain version, against the reference's blocked and Pallas routes."""
+    tcfg, jcfg = _cfgs(attention_impl=impl)
+    rng = np.random.default_rng(5)
+    q, k, v = _rand(rng, 2, 20, 4, 16), _rand(rng, 2, 20, 2, 16), \
+        _rand(rng, 2, 20, 2, 16)
+    j = J.attention(jcfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=True, window=window, softcap=softcap)
+    t = T.attention(tcfg, torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v), causal=True, window=window,
+                    softcap=softcap)
     _close(j, t)
 
 
