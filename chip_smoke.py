@@ -8,20 +8,27 @@ of the repository: it puts ``<its dir>/src`` on ``sys.path`` itself and
 imports nothing of JAX or of the JAX package.  Phases, in order; any
 failure raises and the script exits non-zero:
 
-1. build   — compile the flash-attention kernel from ``csrc/`` with nvcc.
-2. kernel  — the kernel against its plain PyTorch version on the card, on
-             the reference's test cases, the serving shape and head dims 8
-             and 16; times of kernel, plain version and
-             ``scaled_dot_product_attention`` (a yardstick only) at the
-             serving shape, beside the kernel's bound.
-3. reduced — reduced qwen2-7b and qwen1.5-4b in f32, card against CPU.
-4. main    — full-width qwen2-7b from ``init_params(seed)``: prefill 4x1024,
-             16 decode steps at B=4, and ``ServeEngine`` serving 8 requests.
-             Launch counts are read from this run only.
-5. checks  — full-width qwen2-7b: kernel path against plain path, and
-             prefill + decode against forward, in f32 and bf16.
+1. build   — compile the flash-attention and SSD chunk kernels from
+             ``csrc/`` with nvcc, one process per source, in parallel.
+2. kernel  — each kernel against its plain PyTorch version on the card:
+             flash attention on the reference's test cases, the serving
+             shape and head dims 8 and 16; the SSD chunk kernel on the
+             reference's SSD cases and both full-width prefill shapes, in
+             the model's strided layout.  Times of kernel, plain version
+             and (flash only) ``scaled_dot_product_attention``, a yardstick,
+             beside each kernel's bound.
+3. reduced — reduced qwen2-7b, qwen1.5-4b, mamba2-370m and zamba2-1.2b in
+             f32, card against CPU, with each kernel's launches per prefill.
+4. main    — full width from ``init_params(seed)``: qwen2-7b (prefill
+             4x1024), then mamba2-370m and zamba2-1.2b (prefill 4x2048);
+             each with 16 decode steps at B=4 and ``ServeEngine`` serving 8
+             requests on 4 slots.  Launch counts are set to 0 before each
+             model's run and read after it.
+5. checks  — full width: qwen2-7b's kernel path against its plain path;
+             prefill + decode against forward for all three, in f32 and
+             bf16; mamba2-370m's kernel route against the step-by-step scan.
 6. profile — device busy share and top kernels of one prefill and one
-             decode step (``torch.profiler``).
+             decode step of each model (``torch.profiler``).
 
 The line before last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -58,6 +65,23 @@ FLASH_CASES = [
 ]
 MAIN_CASE = FLASH_CASES[6]
 BARS = {"float32": 2e-5, "bfloat16": 2e-2}    # the JAX kernel tests' bars
+
+# tests/test_kernels_pallas.py SSD_CASES, the reduced configs' chunk, then
+# the full-width prefill shapes: b, S, nh, P, N, chunk, x dtype
+SSD_CASES = [
+    (2, 128, 4, 16, 8, 32, "float32"),
+    (1, 256, 2, 32, 16, 64, "float32"),
+    (1, 96, 3, 8, 4, 32, "float32"),
+    (2, 64, 4, 16, 8, 64, "bfloat16"),
+    (2, 64, 8, 16, 16, 32, "float32"),            # mamba2 / zamba2 reduced
+    (4, 2048, 32, 64, 128, 256, "bfloat16"),      # mamba2-370m prefill
+    (4, 2048, 64, 64, 64, 256, "bfloat16"),       # zamba2-1.2b prefill
+    (4, 2048, 32, 64, 128, 256, "float32"),       # mamba2-370m, f32 compute
+]
+SSD_MAIN_CASE = SSD_CASES[5]
+SSD_TIMED = SSD_CASES[5:7]
+SSD_BARS = {"float32": 1e-3, "bfloat16": 2e-2}   # the JAX SSD test's bars
+KERNELS = ("flash", "ssd")
 
 
 def log(phase: str, msg: str) -> None:
@@ -109,21 +133,74 @@ def attention_work(B, Sq, Sk, H, KVH, D, causal, window, dtype_bytes):
     return flops, nbytes
 
 
+def ssd_work(b, S, nh, P, N, chunk, x_bytes):
+    """(operations, bytes) the SSD chunk function needs: C·Bᵀ once per
+    (batch, chunk) on the T = L(L+1)/2 entries j <= i, and per head the
+    two scalings of those entries, their product with x and the N x P
+    state; x, B, C, dt and cum read once, y and the states written once."""
+    L = min(chunk, S)
+    nc = S // L
+    T = L * (L + 1) // 2
+    flops = b * nc * (2 * T * N + nh * (2 * T + 2 * T * P + 2 * L * N * P))
+    nbytes = (x_bytes * b * S * nh * P + 4 * (2 * b * S * N + 2 * b * S * nh)
+              + 4 * b * S * nh * P + 4 * b * nc * nh * N * P)
+    return flops, nbytes
+
+
+def bound(flops, nbytes, peak_flops):
+    """(bound ms, what bounds it) on the published H100 peaks."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def counters():
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
+    return {"flash": flash_attention_fwd, "ssd": ssd_chunk_fwd}
+
+
+def reset_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def prefill_launches(cfg) -> dict:
+    """Kernel launches one prefill makes: flash once per attention layer
+    (dense) or shared-block site (hybrid), SSD once per Mamba2 layer."""
+    from repro_torch.models.hybrid import n_shared_sites
+    if cfg.family == "dense":
+        return {"flash": cfg.n_layers, "ssd": 0}
+    if cfg.family == "ssm":
+        return {"flash": 0, "ssd": cfg.n_layers}
+    return {"flash": n_shared_sites(cfg), "ssd": cfg.n_layers}
+
+
 # --------------------------------------------------------------------- phases
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
-    path, seconds = _build.build("flash_attention")
-    log("1 build", f"flash_attention built in {seconds:.2f} s -> "
-        f"{os.path.relpath(path, HERE)}")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("1 build", "ptxas: " + line.strip())
-    return seconds
+    names = ("flash_attention", "ssd_chunk")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
+        built = dict(zip(names, pool.map(_build.build, names)))
+    for name, (path, seconds) in built.items():
+        log("1 build", f"{name} built in {seconds:.2f} s -> "
+            f"{os.path.relpath(path, HERE)}")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("1 build", "ptxas: " + line.strip())
+    log("1 build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernel(torch):
+def phase_kernel_flash(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -154,9 +231,7 @@ def phase_kernel(torch):
         flops, nbytes = attention_work(B, Sq, Sk, H, KVH, D, causal, window,
                                        q.element_size())
         peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_F32_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        bound_ms, bound_by = bound(flops, nbytes, peak)
         log("2 kernel", f"serving shape {case[:6]} {dname}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
@@ -167,68 +242,128 @@ def phase_kernel(torch):
     return result
 
 
+def ssd_inputs(torch, case, gen):
+    """The kernel's inputs as the model hands them over: x a strided view
+    of the conv output in its dtype, B and C f32 (views of an f32 conv
+    output, copies of a bf16 one), dt and cum f32, A = -1."""
+    b, S, nh, P, N, chunk, dname = case
+    L = min(chunk, S)
+    nc = S // L
+    xbc = torch.randn(b, S, nh * P + 2 * N, device="cuda", generator=gen)
+    xbc[..., nh * P:] *= 0.5
+    xbc = xbc.to(getattr(torch, dname))
+    x = xbc[..., :nh * P].reshape(b, nc, L, nh, P)
+    B = xbc[..., nh * P:nh * P + N].float().reshape(b, nc, L, N)
+    C = xbc[..., nh * P + N:].float().reshape(b, nc, L, N)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, nc, L, nh, device="cuda", generator=gen) - 1.0)
+    cum = torch.cumsum(-dt, dim=2)
+    return x, B, C, dt, cum
+
+
+def phase_kernel_ssd(torch):
+    from repro_torch.kernels.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    result = {}
+    for case in SSD_CASES:
+        args = ssd_inputs(torch, case, gen)
+        y, states = ssd_chunk_fwd(*args)
+        torch.cuda.synchronize()
+        want_y, want_states = ssd_chunk_ref(*args)
+        err = max(float((y - want_y).abs().max()),
+                  float((states - want_states).abs().max()))
+        dname = case[-1]
+        log("2 kernel", f"ssd {case}: max abs err {err:.3e} "
+            f"(bar {SSD_BARS[dname]})")
+        if not err < SSD_BARS[dname]:
+            raise AssertionError(f"SSD kernel disagrees on {case}: {err}")
+        if case not in SSD_TIMED:
+            continue
+        ms = cuda_ms(lambda: ssd_chunk_fwd(*args), 20)
+        plain_ms = cuda_ms(lambda: ssd_chunk_ref(*args), 5)
+        flops, nbytes = ssd_work(*case[:6], args[0].element_size())
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        log("2 kernel", f"ssd prefill shape {case}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, no single PyTorch call, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), kernel at "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
+        if case == SSD_MAIN_CASE:
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": None, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    return result
+
+
 def phase_reduced(torch):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import decode_step, init_params, prefill
 
     rng = np.random.default_rng(0)
-    for arch in ("qwen2-7b", "qwen1.5-4b"):
+    # prompt lengths: the SSD takes S % chunk == 0 (chunk 32 here)
+    for arch, S in (("qwen2-7b", 48), ("qwen1.5-4b", 48),
+                    ("mamba2-370m", 64), ("zamba2-1.2b", 64)):
         cfg = get_config(arch, reduced=True).replace(
             compute_dtype="float32", param_dtype="float32")
         p_cpu = init_params(cfg, 0, device="cpu")
         p_gpu = tree_to(p_cpu, "cuda")
-        toks = rng.integers(0, cfg.vocab_size, (2, 48)).astype("int64")
+        toks = rng.integers(0, cfg.vocab_size, (2, S)).astype("int64")
         batch = {"tokens": torch.as_tensor(toks)}
         outs = {}
         for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
-            before = flash_attention_fwd.launches
+            before = read_launches()
             with torch.inference_mode():
-                cache, logits, pos = prefill(p, cfg, batch, pad_to=56,
+                cache, logits, pos = prefill(p, cfg, batch, pad_to=S + 8,
                                              device=dev)
-                launched = flash_attention_fwd.launches - before
+                launched = {k: n - before[k]
+                            for k, n in read_launches().items()}
                 nxt = torch.argmax(logits, -1)[:, None]
                 dlogits, _ = decode_step(p, cfg, cache, nxt, pos, device=dev)
-            want = cfg.n_layers if dev == "cuda" else 0
+            want = prefill_launches(cfg) if dev == "cuda" \
+                else dict.fromkeys(KERNELS, 0)
             if launched != want:
-                raise AssertionError(f"{arch} on {dev}: {launched} kernel "
-                                     f"launches in prefill, want {want}")
+                raise AssertionError(f"{arch} on {dev}: kernel launches in "
+                                     f"prefill {launched}, want {want}")
             outs[dev] = (logits.cpu(), dlogits.cpu())
         rp = rel_err(outs["cuda"][0], outs["cpu"][0])
         rd = rel_err(outs["cuda"][1], outs["cpu"][1])
         log("3 reduced", f"{arch} f32, card vs CPU: prefill rel {rp:.3e}, "
-            f"decode rel {rd:.3e} (bar 1e-4), {cfg.n_layers} kernel "
-            "launches per prefill")
+            f"decode rel {rd:.3e} (bar 1e-4), kernel launches per prefill "
+            f"{prefill_launches(cfg)}")
         if not (rp < 1e-4 and rd < 1e-4):
             raise AssertionError(f"{arch}: card and CPU disagree")
 
 
-def phase_main(torch, cfg, params):
+def phase_main(torch, cfg, params, S):
+    """One model's main path: prefill B x S, 16 decode steps, ServeEngine.
+    Returns the kernel launches of this run."""
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.engine import Request, ServeEngine
 
-    B, S, steps = 4, 1024, 16
+    B, steps = 4, 16
+    tag = f"4 main {cfg.name}"
     rng = np.random.default_rng(1)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                              device="cuda")
     with torch.inference_mode():      # warm cuBLAS and the allocator
-        prefill(params, cfg, {"tokens": tokens[:1, :64]})
+        prefill(params, cfg, {"tokens": tokens[:1, :256]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention_fwd.launches = 0          # the main path starts here
+    reset_launches()                          # the main path starts here
     with torch.inference_mode():
         t0 = time.perf_counter()
         cache, logits, pos = prefill(params, cfg, {"tokens": tokens},
                                      pad_to=S + steps)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
-        prefill_launches = flash_attention_fwd.launches
+        in_prefill = read_launches()
         nxt = torch.argmax(logits, -1)[:, None]
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -246,13 +381,13 @@ def phase_main(torch, cfg, params):
     done = engine.serve(reqs)
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
-    launches = flash_attention_fwd.launches   # the main path ends here
+    launches = read_launches()                # the main path ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del engine
 
-    if prefill_launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the kernel "
-                             f"{prefill_launches} times, want {cfg.n_layers}")
+    if in_prefill != prefill_launches(cfg):
+        raise AssertionError(f"{cfg.name}: prefill launched {in_prefill}, "
+                             f"want {prefill_launches(cfg)}")
     for name, x in (("prefill", logits), ("decode", dlogits)):
         if x.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{name} logits: shape {tuple(x.shape)} "
@@ -261,14 +396,14 @@ def phase_main(torch, cfg, params):
     if not all(len(r.out) == 16 and r.done
                and all(0 <= t < cfg.vocab_size for t in r.out) for r in done):
         raise AssertionError("ServeEngine left a request short or out of vocab")
-    log("4 main", f"prefill {B}x{S}: {t_prefill:.4f} s "
-        f"({B * S / t_prefill:.1f} tok/s), {prefill_launches} kernel launches")
-    log("4 main", f"decode {steps} steps x {B}: {t_decode:.4f} s "
+    log(tag, f"prefill {B}x{S}: {t_prefill:.4f} s "
+        f"({B * S / t_prefill:.1f} tok/s), kernel launches {in_prefill}")
+    log(tag, f"decode {steps} steps x {B}: {t_decode:.4f} s "
         f"({steps * B / t_decode:.2f} tok/s, "
         f"{t_decode / steps * 1e3:.2f} ms/step)")
-    log("4 main", f"ServeEngine 4 slots, max_len 128: {len(done)} requests, "
+    log(tag, f"ServeEngine 4 slots, max_len 128: {len(done)} requests, "
         f"{served} tokens in {t_serve:.3f} s ({served / t_serve:.2f} tok/s)")
-    log("4 main", f"peak memory {peak_gb:.2f} GB; launches on the main path "
+    log(tag, f"peak memory {peak_gb:.2f} GB; launches on the main path "
         f"{launches}")
     return launches
 
@@ -277,6 +412,8 @@ def phase_checks(torch, cfg, params):
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.models.layers import unembed_matrix
 
+    if cfg.family != "dense":
+        return phase_checks_recurrent(torch, cfg, params)
     S = 512
     gen = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
@@ -295,20 +432,71 @@ def phase_checks(torch, cfg, params):
                 params["embedding"], c).float()
         r_plain, r_dec = rel_err(logits, plain), rel_err(dlogits, ref)
         agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
-        log("5 checks", f"{cdt}: prefill kernel path vs plain path: rel "
-            f"{r_plain:.3e} (bar {bar_plain}, argmax agree {agree:.2f}); "
+        log(f"5 checks {cfg.name}", f"{cdt}: prefill kernel path vs plain "
+            f"path: rel {r_plain:.3e} (bar {bar_plain}, argmax agree {agree:.2f}); "
             f"prefill+decode vs forward(S+1): rel {r_dec:.3e} "
             f"(bar {bar_decode})")
         if not (r_plain < bar_plain and r_dec < bar_decode):
             raise AssertionError(f"full-width {cdt} check over its bar")
 
 
-def phase_profile(torch, cfg, params):
+def phase_checks_recurrent(torch, cfg, params):
+    """ssm / hybrid: prefill(S) + decode(token S) against forward.  The SSD
+    takes S % chunk == 0, so forward runs 768 tokens and is read at
+    position S = 512, which by causality sees tokens 0..S only."""
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.layers import unembed_matrix
+
+    S, S_fwd = 512, 768
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, S_fwd), device="cuda",
+                         generator=gen)
+    for cdt, bar in (("float32", 2e-3), ("bfloat16", 5e-2)):
+        c = cfg.replace(compute_dtype=cdt)
+        with torch.inference_mode():
+            cache, _, pos = prefill(params, c, {"tokens": toks[:, :S]},
+                                    pad_to=S + 8)
+            dlogits, _ = decode_step(params, c, cache, toks[:, S:S + 1], pos)
+            h, _, _ = forward(params, c, {"tokens": toks})
+            ref = h[:, S, :].float() @ unembed_matrix(
+                params["embedding"], c).float()
+        r_dec = rel_err(dlogits, ref)
+        log(f"5 checks {cfg.name}", f"{cdt}: prefill({S})+decode vs "
+            f"forward({S_fwd}) at {S}: rel {r_dec:.3e} (bar {bar})")
+        if not r_dec < bar:
+            raise AssertionError(f"full-width {cdt} check over its bar")
+
+
+def phase_checks_scan(torch, cfg, params):
+    """The kernel route of ``mamba_forward`` against ``impl="scan"`` (the
+    step-by-step recurrence) on layer 0's input, in f32."""
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.ssm import mamba_forward
+    from repro_torch.models.transformer import layer_params
+
+    c = cfg.replace(compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda",
+                         generator=gen)
+    p0 = layer_params(params["stack"]["layers"], 0)
+    with torch.inference_mode():
+        x = embed_tokens(params["embedding"], c, toks)
+        got = mamba_forward(p0, c, x)
+        want = mamba_forward(p0, c, x, impl="scan")
+    err = float((got - want).abs().max())
+    log(f"5 checks {cfg.name}", f"float32: layer 0 kernel route vs "
+        f"step-by-step scan, S=512: max abs err {err:.3e} (bar 1e-3), rel "
+        f"{rel_err(got, want):.3e}")
+    if not err < 1e-3:
+        raise AssertionError("the SSD kernel route disagrees with the scan")
+
+
+def phase_profile(torch, cfg, params, S):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import decode_step, prefill
 
-    B, S = 4, 1024
+    B = 4
     gen = torch.Generator(device="cuda").manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
                          generator=gen)
@@ -318,9 +506,10 @@ def phase_profile(torch, cfg, params):
         nxt = torch.argmax(logits, -1)[:, None]
         torch.cuda.synchronize()
         work = {
-            "prefill_4x1024": lambda: prefill(params, cfg, {"tokens": toks}),
-            "decode_step_4": lambda: decode_step(params, cfg, cache, nxt,
-                                                 pos),
+            f"{cfg.name} prefill_4x{S}": lambda: prefill(
+                params, cfg, {"tokens": toks}),
+            f"{cfg.name} decode_step_4": lambda: decode_step(
+                params, cfg, cache, nxt, pos),
         }
         for name, fn in work.items():
             with profile(activities=[ProfilerActivity.CPU,
@@ -344,6 +533,30 @@ def phase_profile(torch, cfg, params):
                     f"{100 * ms / max(dev_ms, 1e-9):5.1f}%  {e.key[:90]}")
 
 
+def run_model(torch, arch, S):
+    """Initialise one full-width model, drive its main path, check and
+    profile it, and free it.  Returns the main path's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0)
+    torch.cuda.synchronize()
+    log(f"4 main {arch}", f"{param_count(params)} params "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB, "
+        f"{cfg.param_dtype}) initialised on {torch.cuda.get_device_name(0)} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    launches = phase_main(torch, cfg, params, S)
+    phase_checks(torch, cfg, params)
+    if cfg.family == "ssm":
+        phase_checks_scan(torch, cfg, params)
+    phase_profile(torch, cfg, params, S)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -356,8 +569,6 @@ def main() -> int:
         print("chip_smoke: repro_torch not found next to this script: run "
               "it from a checkout of the repository", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params, param_count
 
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -366,28 +577,30 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    kernel = phase_kernel(torch)
+    kernel = {"flash": phase_kernel_flash(torch),
+              "ssd": phase_kernel_ssd(torch)}
     phase_reduced(torch)
 
-    cfg = get_config("qwen2-7b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, 0)
-    torch.cuda.synchronize()
-    log("4 main", f"qwen2-7b: {param_count(params)} params "
-        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB, "
-        f"{cfg.param_dtype}) initialised on {torch.cuda.get_device_name(0)} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    launches = phase_main(torch, cfg, params)
-    phase_checks(torch, cfg, params)
-    phase_profile(torch, cfg, params)
-    if launches < 1:
-        raise AssertionError("the main path never launched the flash kernel")
+    launches = dict.fromkeys(KERNELS, 0)
+    for arch, S in (("qwen2-7b", 1024), ("mamba2-370m", 2048),
+                    ("zamba2-1.2b", 2048)):
+        for k, n in run_model(torch, arch, S).items():
+            launches[k] += n
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the main paths never launched the {k} "
+                                 "kernel")
 
-    record = {"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": launches, **kernel}]}
+    record = {"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:27",
+         "launches": launches["flash"], **kernel["flash"]},
+        {"name": "ssd_chunk_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:21",
+         "launches": launches["ssd"], **kernel["ssd"]},
+    ]}
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(card_line())

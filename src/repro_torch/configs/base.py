@@ -170,6 +170,8 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
+        mamba2_370m,
         qwen1_5_4b,
         qwen2_7b,
+        zamba2_1_2b,
     )

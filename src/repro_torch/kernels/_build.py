@@ -31,6 +31,10 @@ _SIGNATURES = {
             [_I, _I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
             + [_I, _I, _F, _F, _P]),
     },
+    "ssd_chunk": {
+        "repro_ssd_chunk_fwd": ([_I, _I] + [_P] * 7 + [_I] * 6 + [_L] * 21
+                                + [_P]),
+    },
 }
 
 

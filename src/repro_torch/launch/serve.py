@@ -1,8 +1,11 @@
 """Serving launcher: batched greedy decoding over the slot engine, on the
 CUDA card (``--device cpu`` runs the plain PyTorch path on the CPU).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --requests 8 --max-new 16
+
+``--arch`` is any ported architecture: qwen2-7b, qwen1.5-4b (dense),
+mamba2-370m (ssm) or zamba2-1.2b (hybrid).
 """
 from __future__ import annotations
 

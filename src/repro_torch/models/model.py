@@ -1,5 +1,6 @@
-"""Model facade: init / forward / prefill / decode for the dense family.
-Port of the dense dispatch of the JAX package's ``models/model.py``.
+"""Model facade: init / forward / prefill / decode for the dense, ssm
+and hybrid families.  Port of that dispatch of the JAX package's
+``models/model.py``.
 
 Batch dict keys:
   tokens        (B, S) integers (tensor or array) — always present
@@ -19,19 +20,27 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hybrid as hybrid_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.layers import (
     dtype_of,
     embed_tokens,
     embedding_init,
+    rms_norm,
+    rms_norm_init,
     unembed_matrix,
 )
+from repro_torch.models.transformer import layer_params
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (dense only)")
+            f"the {cfg.family} family is not ported yet "
+            f"(have {', '.join(PORTED_FAMILIES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -47,8 +56,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return {"embedding": embedding_init(gen, cfg, dev),
-            "stack": tf_lib.dense_stack_init(gen, cfg, dev)}
+    p = {"embedding": embedding_init(gen, cfg, dev)}
+    if cfg.family == "dense":
+        p["stack"] = tf_lib.dense_stack_init(gen, cfg, dev)
+    elif cfg.family == "ssm":
+        p["stack"] = {"layers": ssm_lib.mamba_init(gen, cfg, dev,
+                                                   lead=(cfg.n_layers,)),
+                      "ln_f": rms_norm_init(cfg.d_model, dev)}
+    else:
+        p["stack"] = hybrid_lib.hybrid_stack_init(gen, cfg, dev)
+    return p
 
 
 def param_count(params) -> int:
@@ -71,6 +88,26 @@ def _params_device(params, device: DeviceLike) -> torch.device:
     return held
 
 
+def _ssm_forward(params, cfg: ModelConfig, x, collect_state: bool):
+    """The ssm stack; the reference's ``remat_group`` only regroups its
+    scan for training memory and does not change the function."""
+    convs, ssms = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        if collect_state:
+            y, (cs, hs) = ssm_lib.mamba_prefill(p, cfg, x)
+            convs.append(cs)
+            ssms.append(hs)
+        else:
+            y = ssm_lib.mamba_forward(p, cfg, x)
+        x = x + y
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    cache = None
+    if collect_state:
+        cache = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+    return x, {}, cache
+
+
 def forward(params, cfg: ModelConfig, batch: dict, *,
             collect_kv: bool = False, device: DeviceLike = None):
     """Returns (hidden (B,S,d), aux dict, caches-or-None)."""
@@ -78,8 +115,13 @@ def forward(params, cfg: ModelConfig, batch: dict, *,
     dev = _params_device(params, device)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = embed_tokens(params["embedding"], cfg, tokens)
-    return tf_lib.dense_forward(params["stack"], cfg, x,
-                                collect_kv=collect_kv)
+    stack = params["stack"]
+    if cfg.family == "ssm":
+        return _ssm_forward(stack, cfg, x, collect_kv)
+    if cfg.family == "hybrid":
+        return hybrid_lib.hybrid_forward(stack, cfg, x,
+                                         collect_state=collect_kv)
+    return tf_lib.dense_forward(stack, cfg, x, collect_kv=collect_kv)
 
 
 def _logits(hidden_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
@@ -94,15 +136,32 @@ def _logits(hidden_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> dict:
-    """Zero-initialized decode cache, (L, B, max_len, KVH, hd) keys and
-    values in the compute dtype."""
+    """Zero-initialized decode cache: dense (L, B, max_len, KVH, hd) keys
+    and values; ssm per-layer conv (L, B, W-1, Ch) and SSM (L, B, nh, N,
+    P) f32 states; hybrid those plus per-site shared-attention keys and
+    values (sites, B, max_len, KVH, hd).  Compute dtype but for the SSM
+    states."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
     cdt = dtype_of(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=cdt, device=dev),
-            "v": torch.zeros(shape, dtype=cdt, device=dev)}
+    L, KVH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.family == "dense":
+        shape = (L, batch, max_len, KVH, hd)
+        return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                "v": torch.zeros(shape, dtype=cdt, device=dev)}
+    d_inner, nh, P, N = ssm_lib.dims(cfg)
+    W = cfg.ssm.conv_width
+    cache = {
+        "conv": torch.zeros((L, batch, W - 1, d_inner + 2 * N), dtype=cdt,
+                            device=dev),
+        "ssm": torch.zeros((L, batch, nh, N, P), dtype=torch.float32,
+                           device=dev),
+    }
+    if cfg.family == "hybrid":
+        shape = (hybrid_lib.n_shared_sites(cfg), batch, max_len, KVH, hd)
+        cache["shared_k"] = torch.zeros(shape, dtype=cdt, device=dev)
+        cache["shared_v"] = torch.zeros(shape, dtype=cdt, device=dev)
+    return cache
 
 
 def _pad_seq(a: torch.Tensor, axis: int, to: int) -> torch.Tensor:
@@ -117,12 +176,15 @@ def prefill(params, cfg: ModelConfig, batch: dict,
             pad_to: Optional[int] = None, *, device: DeviceLike = None):
     """Full-sequence forward building decode caches.  Returns
     (cache, last_logits (B, V) f32, next_pos (B,))."""
-    hidden, _, kvs = forward(params, cfg, batch, collect_kv=True,
-                             device=device)
+    hidden, _, cache = forward(params, cfg, batch, collect_kv=True,
+                               device=device)
     B, S = batch["tokens"].shape
-    cache = {"k": kvs[0], "v": kvs[1]}
+    if cfg.family == "dense":
+        cache = {"k": cache[0], "v": cache[1]}
     if pad_to:
-        cache = {k: _pad_seq(v, 2, pad_to) for k, v in cache.items()}
+        seq_keys = ("k", "v", "shared_k", "shared_v")     # (.., B, S, ..)
+        cache = {k: _pad_seq(v, 2, pad_to) if k in seq_keys else v
+                 for k, v in cache.items()}
     logits = _logits(hidden[:, -1, :], unembed_matrix(params["embedding"], cfg))
     pos = torch.full((B,), S, dtype=torch.long, device=hidden.device)
     return cache, logits, pos
@@ -134,7 +196,8 @@ def prefill(params, cfg: ModelConfig, batch: dict,
 
 def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, *, device: DeviceLike = None):
-    """tokens: (B, 1) integers, pos: (B,) integer write positions.
+    """tokens: (B, 1) integers, pos: (B,) integer write positions (the
+    ssm family's state has no positions and ignores them).
 
     Returns (logits (B, V) f32, cache).  The cache is updated in place
     (the reference donates it); the returned dict holds the same tensors."""
@@ -143,6 +206,18 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     tokens = torch.as_tensor(tokens, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
     x = embed_tokens(params["embedding"], cfg, tokens)
-    h, cache, _ = tf_lib.dense_decode(params["stack"], cfg, x, cache, pos)
+    stack = params["stack"]
+    if cfg.family == "ssm":
+        h = x
+        for i in range(cfg.n_layers):
+            y, _, _ = ssm_lib.mamba_decode_step(
+                layer_params(stack["layers"], i), cfg, h, cache["conv"][i],
+                cache["ssm"][i])
+            h = h + y
+        h = rms_norm(h, stack["ln_f"], cfg.norm_eps)
+    elif cfg.family == "hybrid":
+        h, cache, _ = hybrid_lib.hybrid_decode(stack, cfg, x, cache, pos)
+    else:
+        h, cache, _ = tf_lib.dense_decode(stack, cfg, x, cache, pos)
     logits = _logits(h[:, -1, :], unembed_matrix(params["embedding"], cfg))
     return logits, cache

@@ -32,18 +32,23 @@ from repro_torch.models.layers import (
 # init
 
 
-def stack_init(gen, cfg: ModelConfig, n: int, device) -> dict:
-    """``n`` self-attention layers, each parameter stacked on a leading
-    axis of size ``n`` (the reference vmaps a per-layer init)."""
+def self_layer_init(gen, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
+    """One self-attention layer (zamba2's shared block), or with ``lead``
+    a stack of them, each parameter on leading axes of that shape."""
     if cfg.moe.n_experts > 0:
         raise NotImplementedError("the moe family is not ported yet")
-    lead = (n,)
     return {
         "ln1": rms_norm_init(cfg.d_model, device, lead),
         "attn": attention_init(gen, cfg, device, lead),
         "ln2": rms_norm_init(cfg.d_model, device, lead),
         "mlp": mlp_init(gen, cfg, device, lead),
     }
+
+
+def stack_init(gen, cfg: ModelConfig, n: int, device) -> dict:
+    """``n`` self-attention layers, each parameter stacked on a leading
+    axis of size ``n`` (the reference vmaps a per-layer init)."""
+    return self_layer_init(gen, cfg, device, lead=(n,))
 
 
 def layer_params(stacked: dict, i: int) -> dict:

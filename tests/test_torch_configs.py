@@ -10,7 +10,8 @@ from repro_torch.configs import get_config, list_archs
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-4b", "mamba2-370m",
+                                  "zamba2-1.2b"])
 def test_config_copy_matches_reference(arch, reduced):
     mine = get_config(arch, reduced=reduced)
     ref = jax_get_config(arch, reduced=reduced)
@@ -33,6 +34,7 @@ def test_dataclass_fields_match_reference(name):
 
 
 def test_registry_holds_the_ported_archs():
-    assert list_archs() == ["qwen1.5-4b", "qwen2-7b"]
+    assert list_archs() == ["mamba2-370m", "qwen1.5-4b", "qwen2-7b",
+                            "zamba2-1.2b"]
     with pytest.raises(KeyError):
         get_config("gemma3-4b")

@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the CUDA flash kernel against its plain
-version, its refusals, and the reduced models' launch counts.  They skip
-where no CUDA GPU is present.  This file imports no JAX, so on a machine
+"""Card-only tests of the port: the CUDA flash-attention and SSD chunk
+kernels against their plain versions, their refusals, and the reduced
+models' launch counts.  They skip where no CUDA GPU is present.  This file imports no JAX, so on a machine
 without it run it without the suite's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -88,10 +88,22 @@ def test_kernel_raises_instead_of_falling_back(cuda, bad):
         flash_attention_fwd(q, k, v)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-4b"])
-def test_reduced_prefill_launches_once_per_layer_and_matches_cpu(cuda, arch):
+# arch, prompt length, flash launches and SSD launches per reduced prefill
+PREFILL_LAUNCHES = [
+    ("qwen2-7b", 40, 3, 0),
+    ("qwen1.5-4b", 40, 3, 0),
+    ("mamba2-370m", 64, 0, 4),     # one SSD launch per Mamba2 layer
+    ("zamba2-1.2b", 64, 2, 4),     # and one flash launch per shared site
+]
+
+
+@pytest.mark.parametrize("arch,S,n_flash,n_ssd", PREFILL_LAUNCHES,
+                         ids=[c[0] for c in PREFILL_LAUNCHES])
+def test_reduced_prefill_launches_once_per_layer_and_matches_cpu(
+        cuda, arch, S, n_flash, n_ssd):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
     from repro_torch.models import init_params, prefill
     cfg = get_config(arch, reduced=True).replace(compute_dtype="float32")
     p_cpu = init_params(cfg, 0, device="cpu")
@@ -101,12 +113,85 @@ def test_reduced_prefill_launches_once_per_layer_and_matches_cpu(cuda, arch):
             return {k: to(v, dev) for k, v in tree.items()}
         return tree.to(dev)
 
-    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
                          generator=torch.Generator().manual_seed(0))
-    before = flash_attention_fwd.launches
+    flash, ssd = flash_attention_fwd.launches, ssd_chunk_fwd.launches
     with torch.inference_mode():
         _, logits, _ = prefill(to(p_cpu, cuda), cfg, {"tokens": toks})
-        assert flash_attention_fwd.launches == before + cfg.n_layers
+        assert flash_attention_fwd.launches == flash + n_flash
+        assert ssd_chunk_fwd.launches == ssd + n_ssd
         _, want, _ = prefill(p_cpu, cfg, {"tokens": toks}, device="cpu")
     rel = float((logits.cpu() - want).abs().max()) / float(want.abs().max())
     assert rel < 1e-4
+
+
+# tests/test_kernels_pallas.py SSD_CASES, the reduced configs' shape and
+# the two full-width prefill shapes (b, S, nh, P, N, chunk, x dtype)
+SSD_CASES = [
+    (2, 128, 4, 16, 8, 32, "float32"),
+    (1, 256, 2, 32, 16, 64, "float32"),
+    (1, 96, 3, 8, 4, 32, "float32"),
+    (2, 64, 4, 16, 8, 64, "bfloat16"),
+    (2, 16, 8, 16, 16, 32, "float32"),           # reduced, S < chunk
+    (1, 512, 32, 64, 128, 256, "bfloat16"),      # mamba2-370m
+    (1, 512, 64, 64, 64, 256, "bfloat16"),       # zamba2-1.2b
+]
+SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def _ssd_model_layout(case, device, seed=0):
+    """x, B and C as the model hands them over: strided views into one
+    (b, S, nh*P + 2N) conv output (x in its dtype, B and C in f32)."""
+    b, S, nh, P, N, chunk, dtype = case
+    L = min(chunk, S)
+    nc = S // L
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xbc = torch.randn(b, S, nh * P + 2 * N, device=device, generator=gen)
+    xbc[..., nh * P:] *= 0.5
+    x = xbc.to(getattr(torch, dtype))[..., :nh * P]
+    B, C = xbc[..., nh * P:nh * P + N], xbc[..., nh * P + N:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, nh, device=device, generator=gen) - 1.0)
+    dtc = dt.reshape(b, nc, L, nh)
+    cum = torch.cumsum(-dtc, dim=2)
+    return (x.reshape(b, nc, L, nh, P), B.reshape(b, nc, L, N),
+            C.reshape(b, nc, L, N), dtc, cum)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_version_on_model_layout(cuda, case):
+    from repro_torch.kernels.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
+    x, B, C, dt, cum = _ssd_model_layout(case, cuda)
+    assert not x.is_contiguous() and not B.is_contiguous()
+    before = ssd_chunk_fwd.launches
+    y, states = ssd_chunk_fwd(x, B, C, dt, cum)
+    torch.cuda.synchronize()
+    assert ssd_chunk_fwd.launches == before + 1
+    want_y, want_states = ssd_chunk_ref(x, B, C, dt, cum)
+    assert float((y - want_y).abs().max()) < SSD_TOL[case[-1]]
+    assert float((states - want_states).abs().max()) < SSD_TOL[case[-1]]
+
+
+@pytest.mark.parametrize("bad", ["chunk", "head_dim", "state_dim", "dtype",
+                                 "B_dtype", "requires_grad"])
+def test_ssd_kernel_raises_instead_of_falling_back(cuda, bad):
+    from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
+    b, nc, L, nh, P, N = 1, 2, 32, 2, 16, 8
+    if bad == "chunk":
+        L = 512
+    elif bad == "head_dim":
+        P = 128
+    elif bad == "state_dim":
+        N = 6
+    x = torch.zeros(b, nc, L, nh, P, device=cuda)
+    B = C = torch.zeros(b, nc, L, N, device=cuda)
+    dt = cum = torch.zeros(b, nc, L, nh, device=cuda)
+    if bad == "dtype":
+        x = x.half()
+    elif bad == "B_dtype":
+        B = B.double()
+    elif bad == "requires_grad":
+        x = x.requires_grad_()
+    with pytest.raises((ValueError, TypeError, NotImplementedError)):
+        ssd_chunk_fwd(x, B, C, dt, cum)

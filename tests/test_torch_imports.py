@@ -14,8 +14,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.bridge", "repro_torch.configs",
            "repro_torch.device", "repro_torch.kernels",
-           "repro_torch.kernels.ops", "repro_torch.models",
-           "repro_torch.serve", "repro_torch.launch.serve"]
+           "repro_torch.kernels.ops", "repro_torch.kernels.ssd_scan",
+           "repro_torch.models", "repro_torch.models.ssm",
+           "repro_torch.models.hybrid", "repro_torch.serve",
+           "repro_torch.launch.serve"]
 
 
 def _forbidden(name: str) -> bool:

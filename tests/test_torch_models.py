@@ -1,6 +1,7 @@
-"""The port's dense model against the JAX package on bridged parameters:
-hidden states, prefill logits and caches, decode logits (f32, relative
-error < 1e-4), and prefill + decode against forward (< 2e-3)."""
+"""The port's dense, ssm and hybrid models against the JAX package on
+bridged parameters: hidden states, prefill logits and caches, decode
+logits (f32, relative error < 1e-4), and prefill + decode against forward
+(< 2e-3)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +28,7 @@ from repro_torch.models import (
 from repro_torch.models.layers import unembed_matrix
 from repro_torch.models.transformer import is_global_flags
 
-ARCHS = ["qwen2-7b", "qwen1.5-4b"]
+ARCHS = ["qwen2-7b", "qwen1.5-4b", "mamba2-370m", "zamba2-1.2b"]
 F32 = dict(compute_dtype="float32", param_dtype="float32")
 
 
@@ -64,11 +65,12 @@ def _tokens(cfg, B, S, seed=1):
 def test_forward_hidden_matches_reference(arch):
     cfg, jcfg, jparams, params = _setup(arch, **F32)
     toks = _tokens(cfg, 2, 16)
-    jh, _, _ = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    jh, jaux, _ = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
     h, aux, _ = forward(params, cfg, {"tokens": torch.from_numpy(toks)},
                         device="cpu")
     assert h.shape == (2, 16, cfg.d_model) and h.dtype == torch.float32
-    assert set(aux) == {"moe_lb_loss", "moe_z_loss", "moe_dropped_frac"}
+    # dense: the moe loss keys, as zeros; ssm and hybrid: none
+    assert set(aux) == set(jaux)
     assert _rel(jh, h) < 1e-4
 
 
@@ -84,16 +86,20 @@ def test_prefill_and_decode_match_reference(arch):
                                  pad_to=24, device="cpu")
     assert logits.dtype == torch.float32
     assert _rel(jlogits, logits) < 1e-4
-    for key in ("k", "v"):
-        assert tuple(cache[key].shape) == jcache[key].shape
-        assert _rel(jcache[key], cache[key]) < 1e-4
+    assert sorted(cache) == sorted(jcache)
+    for key in jcache:
+        assert tuple(cache[key].shape) == jcache[key].shape, key
+        assert _rel(jcache[key], cache[key]) < 1e-4, key
     assert pos.tolist() == np.asarray(jpos).tolist()
-    jd, _ = jax_decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, 16:]),
-                            jpos)
+    jd, jcache2 = jax_decode_step(jparams, jcfg, jcache,
+                                  jnp.asarray(toks[:, 16:]), jpos)
+    held = dict(cache)
     d, cache2 = decode_step(params, cfg, cache, torch.from_numpy(toks[:, 16:]),
                             pos, device="cpu")
     assert _rel(jd, d) < 1e-4
-    assert cache2["k"] is cache["k"]        # updated in place
+    for key in jcache2:
+        assert cache2[key] is held[key], key        # updated in place
+        assert _rel(jcache2[key], cache2[key]) < 1e-4, key
 
 
 @pytest.mark.parametrize("arch", ARCHS)

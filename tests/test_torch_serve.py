@@ -57,10 +57,14 @@ def test_serve_engine_matches_direct_decode_and_reference():
     assert out == jout
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-4b", "mamba2-370m",
+                                  "zamba2-1.2b"])
 def test_serve_engine_batches_like_reference(arch):
     """More requests than slots, of different lengths: refills, per-slot
-    positions and the max_len cut all match the JAX engine."""
+    positions and the max_len cut all match the JAX engine.  For the ssm
+    and hybrid families this pins down the reference's recurrent-state
+    handling too: every admission step steps every slot, and a refilled
+    slot keeps its previous occupant's state."""
     cfg, jcfg, jparams, params = _setup(arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -98,6 +102,14 @@ def test_serve_engine_refuses_the_tune_bind():
 
 def test_serve_cli_on_cpu(capsys):
     serve_cli.main(["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
+                    "--requests", "3", "--max-new", "2", "--slots", "2"])
+    out = capsys.readouterr().out
+    assert "3 requests, 6 tokens" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_serve_cli_serves_the_recurrent_families_on_cpu(capsys, arch):
+    serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
                     "--requests", "3", "--max-new", "2", "--slots", "2"])
     out = capsys.readouterr().out
     assert "3 requests, 6 tokens" in out and "on cpu" in out
