@@ -9,26 +9,34 @@ imports nothing of JAX or of the JAX package.  Phases, in order; any
 failure raises and the script exits non-zero:
 
 1. build   — compile the flash-attention and SSD chunk kernels from
-             ``csrc/`` with nvcc, one process per source, in parallel.
-2. kernel  — each kernel against its plain PyTorch version on the card:
-             flash attention on the reference's test cases, the serving
-             shape and head dims 8 and 16; the SSD chunk kernel on the
-             reference's SSD cases and both full-width prefill shapes, in
-             the model's strided layout.  Times of kernel, plain version
-             and (flash only) ``scaled_dot_product_attention``, a yardstick,
-             beside each kernel's bound.
+             ``csrc/`` with nvcc, one process per source, in parallel; log
+             ptxas's registers and spills per kernel, and the flash
+             library's SASS tally of HGMMA (wgmma) and UTMALDG (TMA load)
+             instructions, which must not be 0.
+2. kernel  — each kernel against its plain PyTorch version on the card, in
+             the model's strided layout: flash attention on the
+             reference's test cases, the bf16 edges of the wgmma kernel
+             (ragged, windowed, softcap, rows with no valid key, G = 7),
+             both serving shapes (qwen2-7b 4x1024 D=128, zamba2-1.2b
+             4x2048 D=64) and head dims 8 and 16; the SSD chunk kernel on
+             the reference's SSD cases and both full-width prefill shapes.
+             Times of kernel, plain version and (flash only)
+             ``scaled_dot_product_attention``, a yardstick, beside each
+             kernel's bound.
 3. reduced — reduced qwen2-7b, qwen1.5-4b, mamba2-370m and zamba2-1.2b in
              f32, card against CPU, with each kernel's launches per prefill.
 4. main    — full width from ``init_params(seed)``: qwen2-7b (prefill
              4x1024), then mamba2-370m and zamba2-1.2b (prefill 4x2048);
              each with 16 decode steps at B=4 and ``ServeEngine`` serving 8
              requests on 4 slots.  Launch counts are set to 0 before each
-             model's run and read after it.
+             model's run and read after it; every bf16 prefill attention
+             launch must be a wgmma-kernel launch.
 5. checks  — full width: qwen2-7b's kernel path against its plain path;
              prefill + decode against forward for all three, in f32 and
              bf16; mamba2-370m's kernel route against the step-by-step scan.
-6. profile — device busy share and top kernels of one prefill and one
-             decode step of each model (``torch.profiler``).
+6. profile — device busy share, the top kernels and the port's own
+             kernels of one prefill and one decode step of each model
+             (``torch.profiler``).
 
 The line before last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,8 +58,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# tests/test_kernels_pallas.py FLASH_CASES, then the serving shape and the
-# reduced configs' head dims:
+# tests/test_kernels_pallas.py FLASH_CASES, the serving shapes, the reduced
+# configs' head dims, then the wgmma kernel's bf16 edges:
 # B, Sq, Sk, H, KVH, D, causal, window, softcap, dtype
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, 0.0, "float32"),
@@ -59,11 +68,18 @@ FLASH_CASES = [
     (2, 64, 256, 8, 2, 128, False, 0, 0.0, "float32"),
     (1, 128, 128, 2, 1, 64, True, 0, 30.0, "float32"),
     (1, 32, 32, 4, 2, 64, True, 8, 0.0, "bfloat16"),
-    (4, 1024, 1024, 28, 4, 128, True, 0, 0.0, "bfloat16"),   # serving shape
+    (4, 1024, 1024, 28, 4, 128, True, 0, 0.0, "bfloat16"),   # qwen2-7b serving
     (2, 48, 48, 8, 2, 8, True, 0, 0.0, "float32"),           # qwen2-7b reduced
     (2, 48, 48, 4, 4, 16, True, 0, 0.0, "float32"),          # qwen1.5-4b reduced
+    (4, 2048, 2048, 32, 32, 64, True, 0, 0.0, "bfloat16"),   # zamba2-1.2b serving
+    (2, 64, 256, 8, 2, 128, False, 0, 0.0, "bfloat16"),      # cross attention
+    (1, 128, 128, 2, 1, 64, True, 0, 30.0, "bfloat16"),      # softcap
+    (1, 300, 40, 4, 2, 64, True, 16, 0.0, "bfloat16"),       # rows with no key
+    (1, 200, 200, 28, 4, 128, True, 0, 0.0, "bfloat16"),     # G = 7, ragged
+    (2, 333, 517, 8, 8, 128, False, 100, 20.0, "bfloat16"),  # window + softcap
 ]
 MAIN_CASE = FLASH_CASES[6]
+ZAMBA_CASE = FLASH_CASES[9]
 BARS = {"float32": 2e-5, "bfloat16": 2e-2}    # the JAX kernel tests' bars
 
 # tests/test_kernels_pallas.py SSD_CASES, the reduced configs' chunk, then
@@ -81,7 +97,15 @@ SSD_CASES = [
 SSD_MAIN_CASE = SSD_CASES[5]
 SSD_TIMED = SSD_CASES[5:7]
 SSD_BARS = {"float32": 1e-3, "bfloat16": 2e-2}   # the JAX SSD test's bars
-KERNELS = ("flash", "ssd")
+KERNELS = ("flash", "flash_wgmma", "ssd")
+# kernel launches one full-width bf16 prefill makes: flash once per
+# attention layer or shared-block site, every one on the wgmma kernel, and
+# SSD once per Mamba2 layer
+MAIN_PREFILL_LAUNCHES = {
+    "qwen2-7b": {"flash": 28, "flash_wgmma": 28, "ssd": 0},
+    "mamba2-370m": {"flash": 0, "flash_wgmma": 0, "ssd": 48},
+    "zamba2-1.2b": {"flash": 6, "flash_wgmma": 6, "ssd": 38},
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -155,32 +179,57 @@ def bound(flops, nbytes, peak_flops):
 
 
 def counters():
+    """(wrapper, counter attribute) of each launch count: all flash
+    launches, the flash wgmma kernel's among them, the SSD kernel's."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
-    return {"flash": flash_attention_fwd, "ssd": ssd_chunk_fwd}
+    return {"flash": (flash_attention_fwd, "launches"),
+            "flash_wgmma": (flash_attention_fwd, "wgmma_launches"),
+            "ssd": (ssd_chunk_fwd, "launches")}
 
 
 def reset_launches() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def prefill_launches(cfg) -> dict:
-    """Kernel launches one prefill makes: flash once per attention layer
-    (dense) or shared-block site (hybrid), SSD once per Mamba2 layer."""
+    """Kernel launches one f32 prefill of a reduced config makes: flash
+    once per attention layer (dense) or shared-block site (hybrid), all on
+    the SIMT kernel; SSD once per Mamba2 layer."""
     from repro_torch.models.hybrid import n_shared_sites
-    if cfg.family == "dense":
-        return {"flash": cfg.n_layers, "ssd": 0}
-    if cfg.family == "ssm":
-        return {"flash": 0, "ssd": cfg.n_layers}
-    return {"flash": n_shared_sites(cfg), "ssd": cfg.n_layers}
+    flash = (cfg.n_layers if cfg.family == "dense" else
+             n_shared_sites(cfg) if cfg.family == "hybrid" else 0)
+    return {"flash": flash, "flash_wgmma": 0,
+            "ssd": 0 if cfg.family == "dense" else cfg.n_layers}
 
 
 # --------------------------------------------------------------------- phases
+
+
+def demangle(name: str) -> str:
+    """A kernel's name as ptxas logs it, demangled by the toolkit's
+    ``cu++filt``, e.g. ``<unnamed>::hopper::flash_fwd_wgmma<(int)128,
+    (int)64>``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    return subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cu++filt"), "-p", name],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def sass_tally(path) -> dict:
+    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in a
+    built library's SASS (``cuobjdump -sass``)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(path)],
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    return {op: sum(op in line for line in sass)
+            for op in ("HGMMA", "UTMALDG")}
 
 
 def phase_build():
@@ -194,35 +243,53 @@ def phase_build():
     for name, (path, seconds) in built.items():
         log("1 build", f"{name} built in {seconds:.2f} s -> "
             f"{os.path.relpath(path, HERE)}")
+        kernel = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("1 build", "ptxas: " + line.strip())
+            if "Function properties for" in line:
+                kernel = demangle(line.split()[-1])
+            elif "registers" in line or "spill" in line:
+                log("1 build", f"ptxas {kernel}: " + line.strip())
+    tally = sass_tally(built["flash_attention"][0])
+    log("1 build", f"flash_attention SASS: {tally['HGMMA']} HGMMA (wgmma), "
+        f"{tally['UTMALDG']} UTMALDG (TMA load) instructions")
+    if not (tally["HGMMA"] and tally["UTMALDG"]):
+        raise AssertionError("the flash library holds no wgmma or TMA load")
     log("1 build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel_flash(torch):
+    """Every flash case against the plain version, q, k and v strided views
+    of (B, S, heads, D) tensors as the model passes them; the two serving
+    shapes timed.  Returns the kernel record: the qwen2-7b shape's numbers
+    and, under ``zamba2_shape``, the zamba2-1.2b shape's."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     kernel_route)
     from repro_torch.kernels.ref import attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {}
+    timed = {}
     for case in FLASH_CASES:
         B, Sq, Sk, H, KVH, D, causal, window, softcap, dname = case
         dt = getattr(torch, dname)
-        q = torch.randn(B, H, Sq, D, device="cuda", generator=gen).to(dt)
-        k = torch.randn(B, KVH, Sk, D, device="cuda", generator=gen).to(dt)
-        v = torch.randn(B, KVH, Sk, D, device="cuda", generator=gen).to(dt)
+        q, k, v = (torch.randn(B, S, n, D, device="cuda", generator=gen)
+                   .to(dt).transpose(1, 2)
+                   for S, n in ((Sq, H), (Sk, KVH), (Sk, KVH)))
         kw = dict(causal=causal, window=window, softcap=softcap)
+        route = kernel_route(dt, D)
+        before = flash_attention_fwd.wgmma_launches
         out = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
+        if flash_attention_fwd.wgmma_launches - before != (route == "wgmma"):
+            raise AssertionError(f"{case}: the {route} route miscounted")
         want = attention_ref(q, k, v, **kw)
         err = float((out.float() - want.float()).abs().max())
-        log("2 kernel", f"{case}: max abs err {err:.3e} (bar {BARS[dname]})")
+        log("2 kernel", f"{case} {route}: max abs err {err:.3e} "
+            f"(bar {BARS[dname]})")
         if not err < BARS[dname]:
             raise AssertionError(f"flash kernel disagrees on {case}: {err}")
-        if case != MAIN_CASE:
+        if case not in (MAIN_CASE, ZAMBA_CASE):
             continue
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), 20)
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), 5)
@@ -235,11 +302,12 @@ def phase_kernel_flash(torch):
         log("2 kernel", f"serving shape {case[:6]} {dname}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB), kernel at {flops / ms / 1e9:.2f} TFLOP/s")
-        result = {"max_abs_err": err, "ms": ms,
-                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by}
-    return result
+            f"{nbytes / 1e6:.1f} MB), kernel at {flops / ms / 1e9:.2f} "
+            f"TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound")
+        timed[case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+    return {**timed[MAIN_CASE], "zamba2_shape": timed[ZAMBA_CASE]}
 
 
 def ssd_inputs(torch, case, gen):
@@ -385,9 +453,9 @@ def phase_main(torch, cfg, params, S):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del engine
 
-    if in_prefill != prefill_launches(cfg):
+    if in_prefill != MAIN_PREFILL_LAUNCHES[cfg.name]:
         raise AssertionError(f"{cfg.name}: prefill launched {in_prefill}, "
-                             f"want {prefill_launches(cfg)}")
+                             f"want {MAIN_PREFILL_LAUNCHES[cfg.name]}")
     for name, x in (("prefill", logits), ("decode", dlogits)):
         if x.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{name} logits: shape {tuple(x.shape)} "
@@ -527,7 +595,10 @@ def phase_profile(torch, cfg, params, S):
                 f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%), "
                 f"{sum(e.count for e in kernels)} kernel launches")
             kernels.sort(key=lambda e: -e.self_device_time_total)
-            for e in kernels[:6]:
+            # the six largest, then the port's own kernels below them
+            for i, e in enumerate(kernels):
+                if i >= 6 and not re.search(r"flash_fwd|ssd_chunk", e.key):
+                    continue
                 ms = e.self_device_time_total / 1e3
                 log("6 profile", f"  {ms:9.3f} ms x{e.count:<5d} "
                     f"{100 * ms / max(dev_ms, 1e-9):5.1f}%  {e.key[:90]}")
@@ -595,7 +666,8 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:27",
-         "launches": launches["flash"], **kernel["flash"]},
+         "launches": launches["flash"],
+         "wgmma_launches": launches["flash_wgmma"], **kernel["flash"]},
         {"name": "ssd_chunk_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:21",

@@ -28,7 +28,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention_fwd": (
-            [_I, _I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
+            [_I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
             + [_I, _I, _F, _F, _P]),
     },
     "ssd_chunk": {

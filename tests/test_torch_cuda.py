@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA flash-attention and SSD chunk
-kernels against their plain versions, their refusals, and the reduced
-models' launch counts.  They skip where no CUDA GPU is present.  This file imports no JAX, so on a machine
+"""Card-only tests of the port: the CUDA flash-attention kernels (the
+float32 SIMT kernel and the bf16 wgmma kernel) and the SSD chunk kernel
+against their plain versions, their refusals, and the reduced models'
+launch counts.  They skip where no CUDA GPU is present.  This file imports no JAX, so on a machine
 without it run it without the suite's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -56,6 +57,45 @@ def test_kernel_matches_plain_version(cuda, case):
     assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
 
 
+# bf16 at head dims 64 and 128: the wgmma kernel's cases, with ragged,
+# windowed, softcapped, grouped and no-valid-key rows
+WGMMA_CASES = [
+    # B, Sq, Sk, H, KVH, D, causal, window, softcap
+    (1, 100, 144, 4, 4, 64, True, 32, 0.0),     # ragged + window
+    (1, 32, 32, 4, 2, 64, True, 8, 0.0),
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (2, 64, 256, 8, 2, 128, False, 0, 0.0),     # cross attention
+    (1, 128, 128, 2, 1, 64, True, 0, 30.0),     # softcap
+    (1, 300, 40, 4, 2, 64, True, 16, 0.0),      # rows with no valid key
+    (1, 300, 40, 4, 2, 128, True, 16, 0.0),
+    (1, 200, 200, 28, 4, 128, True, 0, 0.0),    # G = 7, Sq not a tile multiple
+    (2, 333, 517, 8, 8, 128, False, 100, 20.0),
+    (2, 333, 517, 8, 8, 64, True, 100, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_kernel_matches_plain_version_on_model_layout(cuda, case):
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     kernel_route)
+    from repro_torch.kernels.ref import attention_ref
+    B, Sq, Sk, H, KVH, D, causal, window, softcap = case
+    assert kernel_route(torch.bfloat16, D) == "wgmma"
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    # views of (B, S, heads, D) tensors, as the model passes them
+    q, k, v = (torch.randn(B, S, n, D, device=cuda, generator=gen)
+               .bfloat16().transpose(1, 2)
+               for S, n in ((Sq, H), (Sk, KVH), (Sk, KVH)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = (flash_attention_fwd.launches, flash_attention_fwd.wgmma_launches)
+    out = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_fwd.wgmma_launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = attention_ref(q, k, v, **kw)
+    assert float((out.float() - want.float()).abs().max()) < TOL["bfloat16"]
+
+
 def test_kernel_reads_strided_model_layout(cuda):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_ref
@@ -70,7 +110,8 @@ def test_kernel_reads_strided_model_layout(cuda):
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "dense_head_dim",
-                                 "requires_grad"])
+                                 "requires_grad", "misaligned_bf16",
+                                 "bf16_stride"])
 def test_kernel_raises_instead_of_falling_back(cuda, bad):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     q = torch.zeros(1, 4, 16, 64, device=cuda)
@@ -82,10 +123,20 @@ def test_kernel_raises_instead_of_falling_back(cuda, bad):
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "dense_head_dim":
         q = torch.zeros(1, 4, 16, 128, device=cuda)[..., ::2]
+    elif bad == "misaligned_bf16":     # TMA needs a 16-byte aligned base
+        q = torch.zeros(4 * 16 * 64 + 1, device=cuda,
+                        dtype=torch.bfloat16)[1:].view(1, 4, 16, 64)
+        k, v = k.bfloat16(), v.bfloat16()
+    elif bad == "bf16_stride":         # and strides of 16-byte multiples
+        q = torch.zeros(1, 16, 4, 68, device=cuda,
+                        dtype=torch.bfloat16)[..., :64].transpose(1, 2)
+        k, v = k.bfloat16(), v.bfloat16()
     else:       # no backward kernel yet
         q = q.requires_grad_()
+    launches = flash_attention_fwd.launches
     with pytest.raises((ValueError, TypeError, NotImplementedError)):
         flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.launches == launches
 
 
 # arch, prompt length, flash launches and SSD launches per reduced prefill

@@ -1,7 +1,8 @@
 """The flash-attention wrapper's plain (CPU) version against the Pallas
-kernel in interpret mode, on the JAX kernel tests' cases and bars.
+kernel in interpret mode, on the JAX kernel tests' cases and bars, and the
+wrapper's choice of kernel and its checks.
 
-The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py."""
+The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +11,9 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (_check_tma,
+                                                 flash_attention_fwd,
+                                                 kernel_route)
 
 # tests/test_kernels_pallas.py FLASH_CASES
 FLASH_CASES = [
@@ -21,6 +24,11 @@ FLASH_CASES = [
     (2, 64, 256, 8, 2, 128, False, 0, 0.0, "float32"),    # cross attn
     (1, 128, 128, 2, 1, 64, True, 0, 30.0, "float32"),    # softcap
     (1, 32, 32, 4, 2, 64, True, 8, 0.0, "bfloat16"),      # tiny blocks
+    # the wgmma kernel's edges: qwen2-7b's grouping G = 7 at D = 128 with
+    # Sq = Sk not a multiple of its 128-row tiles; zamba2-1.2b's MHA at
+    # D = 64 with window and softcap
+    (1, 200, 200, 7, 1, 128, True, 0, 0.0, "bfloat16"),
+    (1, 160, 160, 4, 4, 64, True, 48, 30.0, "bfloat16"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -81,3 +89,44 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k, v = (t.to("meta") for t in (q, k, v))
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    *[(torch.float32, D, "simt") for D in (8, 16, 32, 64, 128)],
+    *[(torch.bfloat16, D, "simt") for D in (8, 16, 32)],
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"),
+])
+def test_kernel_route_by_dtype_and_head_dim(dtype, D, route):
+    """bf16 at the serving head dims takes the tensor cores; float32 (whose
+    bar a bf16 or TF32 product cannot meet) and small head dims do not."""
+    assert kernel_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype,D,error", [
+    (torch.bfloat16, 96, ValueError),
+    (torch.float32, 256, ValueError),
+    (torch.float16, 64, TypeError),
+])
+def test_kernel_route_refuses_what_no_kernel_takes(dtype, D, error):
+    with pytest.raises(error):
+        kernel_route(dtype, D)
+
+
+@pytest.mark.parametrize("layout", ["model", "misaligned_base",
+                                    "misaligned_stride"])
+def test_tma_check_takes_aligned_views_only(layout):
+    """The wgmma kernel reads q, k and v by TMA: 16-byte aligned base,
+    strides of dims longer than 1 in multiples of 16 bytes."""
+    if layout == "model":       # (B, S, H, D) -> (B, H, S, D) view
+        _check_tma(torch.zeros(2, 40, 4, 64, dtype=torch.bfloat16)
+                   .transpose(1, 2))
+        return
+    if layout == "misaligned_base":
+        t = torch.zeros(4 * 16 * 64 + 1, dtype=torch.bfloat16)[1:]
+        t = t.view(1, 4, 16, 64)
+    else:                       # a row of 68 elements is 136 bytes
+        t = torch.zeros(1, 16, 4, 68, dtype=torch.bfloat16)[..., :64]
+        t = t.transpose(1, 2)
+    with pytest.raises(ValueError):
+        _check_tma(t)
